@@ -1,4 +1,4 @@
-"""TPU-native k-mer counter CLI — mirror of the reference demo app
+"""k-mer counter CLI — mirror of the reference demo app
 (apps/counter.cpp): count a FASTA, optionally verify (mode 2), query a
 second FASTA, print stats.
 
@@ -38,7 +38,7 @@ def pretty_int(n: int) -> str:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        description="Brisk-TPU k-mer counter (reference counter.cpp parity)")
+        description="Brisk k-mer counter (reference counter.cpp parity)")
     ap.add_argument("-f", "--file", required=True, help="FASTA to count")
     ap.add_argument("-q", "--query", default="", help="FASTA to query")
     ap.add_argument("-k", type=int, default=31)

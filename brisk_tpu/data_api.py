@@ -8,7 +8,7 @@ width-2 instantiation is count + last-position: kinds ("sum", "max")
 with ascending positions.
 
 The reference's update model is get() -> mutate DATA* under
-protect/unprotect locks (Brisk.hpp:63-97); the functional TPU analog is
+protect/unprotect locks (Brisk.hpp:63-97); the functional array analog is
 batched upsert: update() appends (key, payload) rows and the next
 compaction merges them under the lane kinds — lock-free, one device
 program per batch.

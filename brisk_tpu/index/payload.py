@@ -1,4 +1,4 @@
-"""Generic fixed-width DATA payloads — the TPU-native `Brisk<DATA>`
+"""Generic fixed-width DATA payloads — the array-program `Brisk<DATA>`
 (reference Brisk.hpp:23-42: the index is templated on an arbitrary
 per-k-mer payload type; the counter instantiates DATA = uint8 count).
 
@@ -12,7 +12,7 @@ kind applied when duplicate keys consolidate:
 
 The reference merges duplicates under a mutex with user code mutating
 `DATA*` in place (Brisk.hpp:63-69 get + caller update). The functional
-TPU analog: duplicates are merged in compaction by a SEGMENTED
+Array analog: duplicates are merged in compaction by a SEGMENTED
 associative scan per lane — any associative, commutative-up-to-order
 merge expressible per lane runs as one fused device pass over the sorted
 run. Layout and machinery mirror index.store (packed lexicographic keys,

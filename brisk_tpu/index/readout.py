@@ -1,5 +1,5 @@
 """Host-side index enumeration: reconstruct original k-mers from stored
-hashed keys (the TPU analog of Brisk::next + unhash, Brisk.hpp:166-172).
+hashed keys (the array analog of Brisk::next + unhash, Brisk.hpp:166-172).
 
 Stored entry key = packed (bucket, hashed_kmer, mini_idx) words
 (store.make_keys). The original k-mer is recovered by un-hashing the

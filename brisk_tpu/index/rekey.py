@@ -1,13 +1,14 @@
 """Dynamic index growth: re-key every stored entry under new (m, b).
 
-The TPU equivalent of Brisk::reallocate (Brisk.hpp:202-224): the reference
-walks its cursor over every k-mer, re-runs get_minimizer with m+2 and
-re-inserts into a fresh DenseMenuYo. Here the walk is a single batched
-device pass: stored hashed keys are un-hashed host-side (vectorized), the
-k-mers are laid out one-per-lane, and the new minimizer decomposition is
-one windowed_get_minimizer evaluation at the final position of each lane
-(exactly update_kmer's get_minimizer-on-the-value semantics,
-Brisk.hpp:88-97 — NOT the streaming enumerator).
+The array-program equivalent of Brisk::reallocate (Brisk.hpp:202-224):
+the reference walks its cursor over every k-mer, re-runs get_minimizer
+with m+2 and re-inserts into a fresh DenseMenuYo. Here the walk is a
+single batched device pass: stored hashed keys are un-hashed host-side
+(vectorized), the k-mers are laid out one-per-lane, and the new
+minimizer decomposition is one windowed_get_minimizer evaluation at the
+final position of each lane (exactly update_kmer's
+get_minimizer-on-the-value semantics, Brisk.hpp:88-97 — NOT the
+streaming enumerator).
 
 Deviation from the reference, documented: when two old entries collapse to
 one new key (same k-mer value stored under two old minimizer keys), the

@@ -1,4 +1,4 @@
-"""Functional sorted-array k-mer index (the TPU-native DenseMenuYo/Bucket).
+"""Functional sorted-array k-mer index (the array-program DenseMenuYo/Bucket).
 
 The reference stores each bucket as realloc'd arrays of compacted
 super-k-mers with a sorted prefix + unsorted tail, merged under OpenMP
@@ -91,8 +91,8 @@ def make_key_words(bucket: jnp.ndarray, key_limbs,
                    mini_idx: jnp.ndarray, k: int, b: int) -> list:
     """make_keys without the final stack: big-endian LIST of W word
     arrays (key_limbs may be a (4, N) array or a 4-tuple). The list form
-    is Pallas-kernel-friendly — kernels write words to output refs
-    directly instead of materializing a stacked array."""
+    lets callers stack words in the layout they need instead of
+    materializing one stacked array first."""
     W = key_words(k, b)
     zeros = jnp.zeros_like(bucket)
     words = [zeros] * W  # little-endian while building
@@ -180,7 +180,7 @@ def _cols_eq(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
 def append(state: IndexState, keys: jnp.ndarray, values: jnp.ndarray,
            valid: jnp.ndarray) -> IndexState:
     """Append a batch of (key, value) rows to the unsorted log as one
-    contiguous slice write (no gathers/scatters — those dominate on TPU).
+    contiguous slice write (no gathers/scatters).
     Invalid rows are written as INVALID tombstones that occupy log slots
     until the next compact, so ensure_room must be called with the RAW
     batch width. n_used counts raw slots."""
@@ -198,7 +198,7 @@ def append(state: IndexState, keys: jnp.ndarray, values: jnp.ndarray,
 @jax.jit
 def compact(state: IndexState) -> IndexState:
     """Global sort + duplicate segment-sum: turns the whole state into one
-    sorted deduped run (the TPU analog of insert_buffer's sort +
+    sorted deduped run (the array analog of insert_buffer's sort +
     inplace_merge, buckets.hpp:166-189)."""
     cap = state.keys.shape[1]
     in_use = jnp.arange(cap) < state.n_used
@@ -334,8 +334,8 @@ def _write_back(state: IndexState, sub_keys: jnp.ndarray,
 
 def compact_auto(state: IndexState, full: bool = True) -> IndexState:
     """Host-side compaction that sorts only a power-of-two prefix covering
-    the used region instead of the whole capacity (the full-capacity sort
-    dominated round 1's bench: a 67M-column sort for 33M used rows).
+    the used region instead of the whole capacity (a full-capacity sort
+    can be a 67M-column sort for 33M used rows).
     Invariant relied on: columns >= n_used are INVALID keys with zero data
     (established by empty/grow/append/compact).
 

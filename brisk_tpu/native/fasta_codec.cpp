@@ -1,8 +1,8 @@
 // Native host-side FASTA parser + 2-bit encoder.
 //
-// The one legitimately-native piece of the TPU engine (SURVEY §7 hard part
-// 6): host I/O must not bottleneck the device pipeline, and the 2-vCPU
-// host cannot parse FASTA line-by-line in Python at device rates.
+// The one legitimately-native piece of the engine (SURVEY §7 hard part
+// 6): host I/O must not bottleneck the device pipeline, and a host cannot
+// parse FASTA line-by-line in Python at device rates.
 //
 // Semantics mirror the reference's getLineFasta/clean_dna
 // (apps/counter.cpp:130-190): records are the concatenated sequence lines

@@ -1,6 +1,8 @@
 """Multi-limb unsigned integer arithmetic on uint32 lanes.
 
-TPUs have no native 64/128-bit integers, so k-mers (up to 126 bits,
+The design avoids 64-bit integer lanes (it was first built for a device
+without them; whether native u64 on the H100 gives less code at equal
+speed is ROADMAP D4), so k-mers (up to 126 bits,
 reference `kint` = __uint128_t, Kmers.hpp:26) are represented as tuples of
 uint32 "limbs", little-endian (limbs[0] = bits 0-31). m-mers and 64-bit
 hash keys use 2 limbs; k-mers use 4.

@@ -126,6 +126,7 @@ class DecyclingSet:
             self.coef[i + 2] = 2 * s
             self.coef[i + 3] = 3 * s
         self.eps = 0.000001
+        self._memo = {}  # m-mer -> class (pure function of the value)
 
     def compute_r(self, seq: int) -> float:
         r = 0.0
@@ -138,7 +139,16 @@ class DecyclingSet:
 
     def mem_double(self, seq: int) -> int:
         """Class in {0: decycling set, 1: double set, 2: other}; class 0
-        ranks lowest in the minimizer order via the hash high bits."""
+        ranks lowest in the minimizer order via the hash high bits.
+        Memoized: minimizer rescans classify each m-mer many times."""
+        cls = self._memo.get(seq)
+        if cls is None:
+            if len(self._memo) >= 1 << 22:
+                self._memo.clear()
+            cls = self._memo[seq] = self._mem_double(seq)
+        return cls
+
+    def _mem_double(self, seq: int) -> int:
         r = self.compute_r(seq)
         if r > self.eps:
             rot = ((seq & 3) << (2 * (self.m - 1))) + (seq >> 2)

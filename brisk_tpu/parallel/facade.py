@@ -11,10 +11,10 @@ this facade is the pod-scale replacement the blueprint demands.
 Insertion (k <= 32) uses the fused sequence-parallel window pipeline:
 records are split into overlapping windows (io.windows) across ALL
 global lanes, a stack of S window batches runs as one device program
-(sharded.sharded_insert_windows), and the rare uncertified windows are
-re-run exactly through the streaming carry path on the host's default
+(sharded.sharded_insert_windows_sklonly), and the rare uncertified windows
+are re-run exactly through the streaming carry path on the host's default
 device and delivered to their owner shards via a host-built routing
-buffer (sharded.sharded_append_buf). k > 32 runs the same windowed
+buffer (sharded.sharded_append_skl_rows). k > 32 runs the same windowed
 path (exact via batched repairs; see the note at _insert_windowed).
 
 Capacity contracts are HOST-enforced: appends consume a fixed number of
@@ -48,7 +48,7 @@ class ShardedBrisk:
                  stack: int = 4, route_cap: int = None,
                  skl_route_cap: int = None, capacity: int = 1 << 16):
         import brisk_tpu
-        brisk_tpu.enable_persistent_cache()  # TPU-only; no-op on CPU
+        brisk_tpu.enable_persistent_cache()
         from brisk_tpu.parallel import multihost
         if mesh is None:
             if jax.process_count() > 1:
@@ -74,8 +74,8 @@ class ShardedBrisk:
         # genuinely-skewed flush (poly-A runs -> one hot bucket) SPILLS
         # to the source shard, which is exact by construction
         # (tests/test_facade.py::test_facade_skewed_input_spills_without
-        # _loss; measured CPU-mesh step overhead n8/n1 = 1.66x at this
-        # sizing, scripts/sharded_overhead.py).
+        # _loss). Routing overhead on four H100s is measured by the
+        # benchmark (ROADMAP S3, R4).
         self.route_cap = route_cap or max(
             64, 4 * batch_per_shard * self.window // self.n_shards)
         self.W = store.key_words(params.k, params.b)
@@ -658,37 +658,19 @@ class ShardedBrisk:
     # -- compacted super-k-mer arena (C8 at pod scale) -----------------------
 
     def _local_skl(self):
-        """(shard_id, single-shard SklState) per addressable shard."""
+        """(shard_id, single-shard SklState) per addressable shard, each
+        on its own device: per-shard programs (finalize, probes, joins)
+        then run on the shard's card alone. (Indexing the global array,
+        skl.bucket[d], would give a copy replicated over the whole mesh
+        and compile every per-shard program for all devices.)"""
         from brisk_tpu.index import sklstore
-        if self.multihost:
-            fields = {}
-            for name in sklstore.SklState._fields:
-                arr = getattr(self.skl, name)
-                for s in arr.addressable_shards:
-                    sl = s.index[0]
-                    d = sl.start if isinstance(sl, slice) else sl
-                    fields.setdefault(d or 0, {})[name] = \
-                        np.asarray(s.data)[0]
-            for d in sorted(fields):
-                f = fields[d]
-                yield d, sklstore.SklState(
-                    bucket=jnp.asarray(f["bucket"]),
-                    meta=jnp.asarray(f["meta"]),
-                    nucs=jnp.asarray(f["nucs"]),
-                    data=jnp.asarray(f["data"]),
-                    offs=jnp.asarray(f["offs"]),
-                    n_rows=jnp.int32(int(f["n_rows"])),
-                    n_fin_rows=jnp.int32(int(f["n_fin_rows"])),
-                    n_fin_kmers=jnp.int32(int(f["n_fin_kmers"])))
-        else:
-            for d in range(self.n_shards):
-                yield d, sklstore.SklState(
-                    bucket=self.skl.bucket[d], meta=self.skl.meta[d],
-                    nucs=self.skl.nucs[d], data=self.skl.data[d],
-                    offs=self.skl.offs[d],
-                    n_rows=self.skl.n_rows[d],
-                    n_fin_rows=self.skl.n_fin_rows[d],
-                    n_fin_kmers=self.skl.n_fin_kmers[d])
+        fields = {}
+        for name in sklstore.SklState._fields:
+            for s in getattr(self.skl, name).addressable_shards:
+                fields.setdefault(s.index[0].start or 0, {})[name] = \
+                    s.data[0]
+        for d in sorted(fields):
+            yield d, sklstore.SklState(**fields[d])
 
     def finalize(self) -> None:
         """Consolidate every shard's super-k-mer arena (duplicate k-mer

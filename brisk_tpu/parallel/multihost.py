@@ -1,12 +1,12 @@
 """Multi-host distributed runtime (SURVEY §5.8, P5).
 
 The reference's scale ceiling is one shared-memory process (OpenMP +
-per-minimizer lock groups, DenseMenuYo.hpp:110-118). The pod-scale
-TPU replacement: every host runs the SAME program under
+per-minimizer lock groups, DenseMenuYo.hpp:110-118). The multi-host
+replacement: every host runs the SAME program under
 `jax.distributed`, the mesh spans all hosts' devices, and the existing
-shard_map programs (parallel.sharded) run unchanged — the all_to_all
-emission routing rides ICI within a host and DCN across hosts, inserted
-by XLA from the same collective.
+shard_map programs (parallel.sharded) run unchanged — XLA inserts the
+all_to_all emission routing from the same collective within and across
+hosts. Tested on CPU processes only; it has not run on GPUs.
 
 Host-major device order: the 1-D "x" axis enumerates processes' devices
 contiguously (process 0's chips, then process 1's, ...), so

@@ -1,7 +1,7 @@
 """Multi-chip sharded index: data-parallel reads, minimizer-space sharding.
 
 The reference's only concurrency story is OpenMP threads + per-minimizer
-lock groups in shared memory (DenseMenuYo.hpp:110-118). The TPU-native
+lock groups in shared memory (DenseMenuYo.hpp:110-118). The device-mesh
 equivalent (SURVEY §2 parallelism table):
 
   * record lanes are DATA-PARALLEL across chips (each chip enumerates its

@@ -150,3 +150,28 @@ def test_facade_reallocate_preserves_counts(tmp_path, mesh):
     # skl arena matches the re-keyed store
     ss = br.skl_stats()
     assert ss["nb_live_kmers"] == len(before)
+
+
+def test_facade_shard_programs_run_on_their_own_device(tmp_path, mesh):
+    """Each shard's arena view lives on its own device alone, so the
+    per-shard finalize is a one-device program whose result stays there
+    (not a program replicated over the whole mesh)."""
+    from brisk_tpu.index import sklstore
+    k, m, b = 31, 11, 8
+    path = str(tmp_path / "in.fa")
+    write_fa(path, [rand_seq(3000) for _ in range(4)])
+    br = ShardedBrisk(Parameters(k=k, m=m, b=b), mesh=mesh,
+                      batch_per_shard=8, window=128, stack=2)
+    br.insert_file(path)
+    devs = list(np.asarray(mesh.devices).reshape(-1))
+    shards = list(br._local_skl())
+    assert [d for d, _ in shards] == list(range(8))
+    for d, lskl in shards:
+        for name, arr in lskl._asdict().items():
+            assert arr.devices() == {devs[d]}, (d, name)
+        fin = sklstore.finalize_device(lskl, k, m, b)
+        assert fin.bucket.devices() == {devs[d]}
+    br.finalize()
+    assert br.skl.bucket.sharding.device_set == set(devs)
+    assert br.stats()["nb_emitted"] == sum(
+        len(r) - k + 1 for r in pyref.read_fasta_chunks(path))

@@ -1,8 +1,8 @@
 """Multi-host distributed insert: 2 jax.distributed processes x 4
 virtual CPU devices on localhost, exact count parity vs the oracle
-(SURVEY §5.8 / VERDICT r1 item 6). The same code path scales to a
-multi-host TPU pod — only the coordinator address and device counts
-change."""
+(SURVEY §5.8 / VERDICT r1 item 6). The same code path is meant for
+several GPU hosts — only the coordinator address and device counts
+change; it has not run on GPUs yet (ROADMAP D8)."""
 import json
 import os
 import random

@@ -1,4 +1,6 @@
 """Native C++ FASTA parser vs the Python oracle reader."""
+import os
+
 import numpy as np
 import pytest
 
@@ -58,3 +60,31 @@ def test_empty_and_missing(lib, tmp_path):
     assert native.parse_fasta_codes(str(p)) == []
     with pytest.raises(IOError):
         native.parse_fasta_codes(str(tmp_path / "nope.fa"))
+
+
+def test_build_lands_in_checkout_without_march_native():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cmd = native.build_command("out.so")
+    assert not any(a.startswith(("-march", "-mtune", "-mcpu")) for a in cmd)
+    assert os.path.commonpath([native.SO_PATH, root]) == root
+    top = os.path.relpath(native.SO_PATH, root).split(os.sep)[0]
+    with open(os.path.join(root, ".gitignore")) as f:
+        assert f"{top}/" in f.read().split()
+    assert native.load() is not None and os.path.exists(native.SO_PATH)
+
+
+def test_build_failure_reported_once(monkeypatch, tmp_path, capsys):
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_load_failed", False)
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(native, "SO_PATH", str(tmp_path / "lib.so"))
+    missing = str(tmp_path / "missing.cpp")
+    monkeypatch.setattr(native, "build_command",
+                        lambda out: ["g++", missing, "-o", out])
+    assert native.load() is None
+    assert native.load() is None
+    assert native.parse_fasta_codes("data/test.fa") is None
+    err = capsys.readouterr().err
+    assert err.count("pure-Python FASTA parser") == 1
+    assert "missing.cpp" in err  # the compiler's own message
+    assert not os.listdir(tmp_path)  # no half-written library left

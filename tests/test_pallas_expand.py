@@ -1,10 +1,7 @@
-"""Parity tests for the J-major span expansion (Pallas kernel + lax
-fallback) against the row-major reference expansion (_expand_span).
-
-The kernel (sklstore._expand_span_jmajor_pallas) is the product path on
-TPU; on the CPU test mesh it runs in Pallas interpret mode here so the
-exact kernel body stays covered by CI. Contract: for every word w, row r
-and slot j,  jmajor[w, j*R + r] == rowmajor[w, r*s_max + j].
+"""Parity tests for the J-major span expansion against the row-major
+reference expansion (_expand_span). Contract: for every word w, row r
+and slot j,  jmajor[w, j*R + r] == rowmajor[w, r*s_max + j]. The same
+comparison runs on the GPU at R = 2^23 in chip_smoke.py (phase b).
 """
 
 import jax.numpy as jnp
@@ -12,28 +9,12 @@ import numpy as np
 import pytest
 
 from brisk_tpu.index import sklstore, store
+from tests.make_synth_fasta import random_span
 
 K, M, B = 31, 11, 8
 
 
-def _random_span(R, seed=0):
-    """Random but invariant-respecting span rows: bucket < 2^(2b) or
-    INVALID (dead), size in [1, s_max], mini_idx plausible."""
-    cs, s_max, nt_max, nw = sklstore.skl_dims(K, M, B)
-    rng = np.random.default_rng(seed)
-    bucket = rng.integers(0, 1 << (2 * B), R, dtype=np.uint32)
-    dead = rng.random(R) < 0.15
-    bucket[dead] = 0xFFFFFFFF
-    size = rng.integers(1, s_max + 1, R, dtype=np.uint32)
-    mini = (size - 1) + rng.integers(0, cs - s_max + 1, R,
-                                     dtype=np.uint32) + 3
-    meta = (size & 0xFF) | ((mini & 0xFF) << 8)
-    nucs = rng.integers(0, 1 << 32, (nw, R), dtype=np.uint32)
-    return (jnp.asarray(bucket), jnp.asarray(meta.astype(np.uint32)),
-            jnp.asarray(nucs), s_max)
-
-
-def _rowmajor_as_jmajor(keys_rm, ok, R, s_max):
+def _rowmajor_as_jmajor(keys_rm, R, s_max):
     W = keys_rm.shape[0]
     k3 = np.asarray(keys_rm).reshape(W, R, s_max)
     return np.moveaxis(k3, 2, 1).reshape(W, s_max * R)
@@ -41,23 +22,11 @@ def _rowmajor_as_jmajor(keys_rm, ok, R, s_max):
 
 @pytest.mark.parametrize("R", [1024, 4096, 12288])
 def test_lax_jmajor_matches_rowmajor(R):
-    sb, sm, sn, s_max = _random_span(R, seed=R)
-    keys_rm, ok = sklstore._expand_span(sb, sm, sn, K, M, B, s_max)
-    keys_jm = sklstore._expand_span_jmajor_lax(sb, sm, sn, K, M, B, s_max)
-    want = _rowmajor_as_jmajor(keys_rm, ok, R, s_max)
+    sb, sm, sn, s_max = random_span(R, K, M, B, seed=R)
+    keys_rm, _ = sklstore._expand_span(sb, sm, sn, K, M, B, s_max)
+    keys_jm = sklstore._expand_span_jmajor(sb, sm, sn, K, M, B, s_max)
+    want = _rowmajor_as_jmajor(keys_rm, R, s_max)
     np.testing.assert_array_equal(np.asarray(keys_jm), want)
-
-
-@pytest.mark.parametrize("R", [1024, 12288])
-def test_pallas_kernel_interpret_matches(R):
-    """The EXACT kernel body, in Pallas interpret mode on CPU."""
-    sb, sm, sn, s_max = _random_span(R, seed=7 * R)
-    keys_jm = sklstore._expand_span_jmajor_pallas(
-        sb, sm, sn, K, M, B, s_max, interpret=True)
-    keys_ref = sklstore._expand_span_jmajor_lax(sb, sm, sn, K, M, B,
-                                                s_max)
-    np.testing.assert_array_equal(np.asarray(keys_jm),
-                                  np.asarray(keys_ref))
 
 
 def test_make_key_words_matches_make_keys():

@@ -278,6 +278,40 @@ def test_incremental_finalize_segments():
     assert br._skl_segments == segs
 
 
+@pytest.mark.parametrize("chunk_rows", [1 << 20, 7])
+def test_batched_host_probe_matches_device_probe(chunk_rows, monkeypatch):
+    """probe_np (every queried bucket at once, row chunks) must give the
+    per-bucket device probe's answers, across two finalize segments with
+    cross-segment duplicates, for present and absent k-mers alike."""
+    from brisk_tpu.api import Brisk
+    from brisk_tpu.index import keying
+    from brisk_tpu.params import Parameters
+    k, m, b = 31, 11, 8
+    s1 = rand_seq(700)
+    s2 = rand_seq(400) + s1[:300]
+    br = Brisk(Parameters(k=k, m=m, b=b), batch=4, window=96, stack=2)
+    br.insert_sequence(s1)
+    br.finalize()
+    br.insert_sequence(s2)
+    br.finalize()
+    assert len(br._skl_segments) == 2
+    qs = [s[i:i + k] for s in (s1, s2) for i in range(0, len(s) - k, 3)]
+    qs += [rand_seq(k) for _ in range(50)]
+    buckets, cols = keying.key_batch(keying.strs_to_codes(qs), m, b)
+    cache = sklstore.host_cache(br.skl)
+    monkeypatch.setattr(sklstore, "PROBE_CHUNK_ROWS", chunk_rows)
+    found, vals = sklstore.probe_np(cache, buckets, cols, k, m, b,
+                                    segments=br._skl_segments)
+    for bk in np.unique(buckets):
+        sel = np.nonzero(buckets == bk)[0]
+        f, v = sklstore.probe(br.skl, cols[:, sel], int(bk), k, m, b,
+                              segments=br._skl_segments)
+        np.testing.assert_array_equal(found[sel], np.asarray(f))
+        np.testing.assert_array_equal(vals[sel][found[sel]],
+                                      np.asarray(v)[np.asarray(f)])
+    assert 0 < found.sum() < len(qs)
+
+
 def test_memory_reduction_vs_perkmer():
     """The C8 resident format must be at least 3x smaller than round 1's
     28 B/kmer flat rows on realistic random data."""
